@@ -1,6 +1,6 @@
 # Local CI entry point — mirrors .github/workflows/ci.yaml (which mirrors
 # the reference's .github/workflows/ci.yaml: lint + test).
-.PHONY: ci lint test test-all native bench tpu-smoke
+.PHONY: ci lint test test-all test-gpu native bench chip-smoke
 
 ci: lint native test
 
@@ -8,7 +8,7 @@ lint:
 	python tools/lint.py
 
 native:
-	$(MAKE) -C solstrale_tpu/native
+	$(MAKE) -C solstrale/native
 
 test:
 	python -m pytest tests/ -q -m "not slow"
@@ -16,8 +16,12 @@ test:
 test-all:
 	python -m pytest tests/ -q
 
+# card-only tests, on a machine with a CUDA GPU
+test-gpu:
+	JAX_PLATFORMS=cuda python -m pytest tests/ -q -m gpu
+
 bench:
 	python bench.py
 
-tpu-smoke:
-	python tools/tpu_smoke.py
+chip-smoke:
+	python chip_smoke.py

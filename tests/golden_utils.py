@@ -11,8 +11,8 @@ import os
 import numpy as np
 from PIL import Image
 
-from solstrale_tpu import Renderer
-from solstrale_tpu.utils import compare_images_rms
+from solstrale import Renderer
+from solstrale.utils import compare_images_rms
 
 THRESHOLD = 0.95
 EXPECTED_DIR = "/root/reference/tests/output"

@@ -1,20 +1,103 @@
 """Fixture scenes mirroring the reference golden suite
-(``/root/reference/tests/scenes.rs``) — same geometry, materials, cameras."""
+(``/root/reference/tests/scenes.rs``) — same geometry, materials, cameras.
+
+Image textures are generated from fixed seeds (numpy only, no image
+files): an albedo, a tangent-space normal map made from a height field
+through ``height_to_normal_map``, a checker and a height map, at the size
+class of the reference's texture assets."""
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
-from solstrale_tpu import (Blend, Bvh, CameraConfig, ConstantMedium,
-                           Dielectric, DiffuseLight, ImageMap, Lambertian,
-                           Metal, NopTransformer, Quad, RotationY, Scene,
-                           SolidColor, Sphere, Transformations, Translation,
-                           Triangle, load_normal_texture, new_box)
+from solstrale import (Blend, Bvh, CameraConfig, ConstantMedium,
+                       Dielectric, DiffuseLight, ImageMap, Lambertian,
+                       Metal, NopTransformer, Quad, RotationY, Scene,
+                       SolidColor, Sphere, Transformations, Translation,
+                       Triangle, new_box)
+from solstrale.utils import height_to_normal_map
 
 REF = "/root/reference"
 
 
-def tex(name):
-    return f"{REF}/resources/textures/{name}"
+def _smooth_noise(rng, h, w, cell):
+    """(h, w) field in [0, 1]: a random (h/cell, w/cell) grid bilinearly
+    upsampled, plus a finer octave."""
+    def octave(c):
+        gh, gw = h // c + 2, w // c + 2
+        g = rng.random((gh, gw))
+        ys = np.arange(h) / c
+        xs = np.arange(w) / c
+        y0, x0 = ys.astype(int), xs.astype(int)
+        fy, fx = (ys - y0)[:, None], (xs - x0)[None, :]
+        a = g[y0][:, x0]
+        b = g[y0][:, x0 + 1]
+        c_ = g[y0 + 1][:, x0]
+        d = g[y0 + 1][:, x0 + 1]
+        return (a * (1 - fx) * (1 - fy) + b * fx * (1 - fy)
+                + c_ * (1 - fx) * fy + d * fx * fy)
+
+    return 0.7 * octave(cell) + 0.3 * octave(max(cell // 8, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def height_image(seed=11, h=512, w=1024):
+    """Grayscale height map, (h, w, 3) u8."""
+    v = _smooth_noise(np.random.default_rng(seed), h, w, 64)
+    g = (v * 255.0).astype(np.uint8)
+    return np.repeat(g[..., None], 3, axis=2)
+
+
+@functools.lru_cache(maxsize=None)
+def albedo_texture(seed=5, size=1024):
+    """Colored albedo (stone-like blotches), 1024x1024."""
+    rng = np.random.default_rng(seed)
+    v = _smooth_noise(rng, size, size, 128)
+    base = np.array([0.62, 0.52, 0.40])
+    tint = np.array([0.25, 0.22, 0.18])
+    img = base + (v[..., None] - 0.5) * tint * 2.0
+    img = img + 0.04 * rng.standard_normal((size, size, 3))
+    return ImageMap((np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8))
+
+
+@functools.lru_cache(maxsize=None)
+def ground_texture(seed=3, size=1024):
+    """Second albedo (green-brown ground), 1024x1024."""
+    rng = np.random.default_rng(seed)
+    v = _smooth_noise(rng, size, size, 96)
+    img = np.stack([0.30 + 0.35 * v, 0.45 + 0.25 * v, 0.20 + 0.15 * v], -1)
+    return ImageMap((np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8))
+
+
+@functools.lru_cache(maxsize=None)
+def normal_texture(seed=7, size=1024):
+    """Tangent-space normal map from a seeded height field, 1024x1024."""
+    v = _smooth_noise(np.random.default_rng(seed), size, size, 32)
+    g = np.repeat((v * 255.0).astype(np.uint8)[..., None], 3, axis=2)
+    return ImageMap(height_to_normal_map(g))
+
+
+@functools.lru_cache(maxsize=None)
+def height_normal_texture(seed=11):
+    """The height map of ``height_image`` as a normal map (the conversion
+    load_normal_texture applies to height maps, texture.rs:89-97)."""
+    return ImageMap(height_to_normal_map(height_image(seed)))
+
+
+@functools.lru_cache(maxsize=None)
+def height_albedo_texture(seed=11):
+    """The height map itself used as an albedo."""
+    return ImageMap(height_image(seed))
+
+
+@functools.lru_cache(maxsize=None)
+def checker_texture(size=512, squares=8):
+    """Black/white checker, 512x512."""
+    k = (np.arange(size) * squares // size)
+    cell = (k[:, None] + k[None, :]) % 2
+    g = np.where(cell == 0, 255, 0).astype(np.uint8)
+    return ImageMap(np.repeat(g[..., None], 3, axis=2))
 
 
 def create_test_scene(render_config):
@@ -23,8 +106,7 @@ def create_test_scene(render_config):
     camera = CameraConfig(vertical_fov_degrees=20.0, aperture_size=0.1,
                           look_from=(-5.0, 3.0, 6.0), look_at=(0.25, 1.0, 0.0))
     world = []
-    image_tex = ImageMap.load(tex("tex.jpg"))
-    ground = Lambertian(image_tex)
+    ground = Lambertian(ground_texture())
     glass = Dielectric(SolidColor(1.0, 1.0, 1.0), None, 1.5)
     light = DiffuseLight(10.0, 10.0, 10.0)
     red = Lambertian(SolidColor(1.0, 0.0, 0.0))
@@ -91,7 +173,7 @@ def create_uv_scene(render_config):
     camera = CameraConfig(vertical_fov_degrees=20.0, aperture_size=0.0,
                           look_from=(0.0, 1.0, 5.0), look_at=(0.0, 1.0, 0.0))
     world = [Sphere((50, 50, 50), 20.0, DiffuseLight(10.0, 10.0, 10.0))]
-    checker = Lambertian(ImageMap.load(tex("checker.jpg")))
+    checker = Lambertian(checker_texture())
     world.append(Triangle.new_with_tex_coords(
         (-1, 0, 0), (1, 0, 0), (0, 2, 0),
         (-1, -1), (2, -1), (0, 2), checker))
@@ -103,7 +185,7 @@ def create_normal_mapping_scene(render_config, light_pos, enabled):
     camera = CameraConfig(vertical_fov_degrees=40.0, aperture_size=0.0,
                           look_from=(0.2, 0.2, 2.0), look_at=(0.0, 0.0, 0.0))
     world = [Sphere(light_pos, 5.0, DiffuseLight(45.0, 45.0, 45.0))]
-    normal_tex = load_normal_texture(tex("normal.png")) if enabled else None
+    normal_tex = normal_texture() if enabled else None
     mat = Lambertian(SolidColor(0.8, 0.8, 0.8), normal_tex)
     red = Lambertian(SolidColor(1.0, 0.0, 0.0))
     world += new_box((-0.1, -0.1, 0), (0.1, 0.1, 1), red)
@@ -116,15 +198,14 @@ def create_normal_mapping_sphere_scene(render_config, light_pos):
     camera = CameraConfig(vertical_fov_degrees=40.0, aperture_size=0.0,
                           look_from=(0.2, 0.2, 2.0), look_at=(0.0, 0.0, 0.0))
     world = [Sphere(light_pos, 5.0, DiffuseLight(45.0, 45.0, 45.0))]
-    mat = Lambertian(SolidColor(0.8, 0.8, 0.8),
-                     load_normal_texture(tex("earth_height.jpg")))
+    mat = Lambertian(SolidColor(0.8, 0.8, 0.8), height_normal_texture())
     world.append(Sphere((0, 0, 0), 0.6, mat))
     return Scene(Bvh(world), camera, (0.0, 0.0, 0.0), render_config)
 
 
 def create_obj_scene(render_config):
     """Spider OBJ with textures (scenes.rs:318-352)."""
-    from solstrale_tpu.scene.loader import Obj
+    from solstrale.scene.loader import Obj
 
     camera = CameraConfig(vertical_fov_degrees=30.0, aperture_size=20.0,
                           look_from=(-250.0, 30.0, 150.0),
@@ -132,14 +213,14 @@ def create_obj_scene(render_config):
     world = [Sphere((-100, 100, 40), 35.0, DiffuseLight(15.0, 15.0, 15.0))]
     world.append(Obj(f"{REF}/resources/spider/", "spider.obj")
                  .load(NopTransformer(), None))
-    ground = Lambertian(ImageMap.load(tex("tex.jpg")))
+    ground = Lambertian(ground_texture())
     world.append(Quad((-200, -30, -200), (400, 0, 0), (0, 0, 400), ground))
     return Scene(Bvh(world), camera, (0.2, 0.3, 0.5), render_config)
 
 
 def create_obj_with_box(render_config, path, filename):
     """Box OBJ with default/diffuse material (scenes.rs:355-381)."""
-    from solstrale_tpu.scene.loader import Obj
+    from solstrale.scene.loader import Obj
 
     camera = CameraConfig(vertical_fov_degrees=30.0, aperture_size=0.0,
                           look_from=(2.0, 1.0, 3.0), look_at=(0.0, 0.0, 0.0))
@@ -151,7 +232,7 @@ def create_obj_with_box(render_config, path, filename):
 
 def create_obj_with_triangle(render_config, path, filename):
     """Triangle OBJ with normal/height bump map (scenes.rs:384-409)."""
-    from solstrale_tpu.scene.loader import Obj
+    from solstrale.scene.loader import Obj
 
     camera = CameraConfig(vertical_fov_degrees=30.0, aperture_size=0.0,
                           look_from=(0.0, 0.0, 2.0), look_at=(0.0, 0.0, 0.0))
@@ -194,7 +275,7 @@ def create_blend_material_scene(render_config, blend_factor):
     """Checker/green blend ground (scenes.rs:482-513)."""
     world = [
         Quad((-100, 0, -100), (200, 0, 0), (0, 0, 200),
-             Blend(Lambertian(ImageMap.load(tex("checker.jpg"))),
+             Blend(Lambertian(checker_texture()),
                    Lambertian(SolidColor(0, 1, 0)), blend_factor)),
         Sphere((0, 500, -200), 50.0, DiffuseLight(15.0, 15.0, 15.0)),
     ]
@@ -218,7 +299,7 @@ def create_sponza_class_scene(render_config, n_cells=362, seed=7,
     exercises the texture arena, UV interpolation and shading-normal
     machinery, not just solid-color shading.
     """
-    from solstrale_tpu.scene import TriangleMesh
+    from solstrale.scene import TriangleMesh
 
     rng = np.random.default_rng(seed)
     xs = np.linspace(-10.0, 10.0, n_cells + 1)
@@ -240,8 +321,7 @@ def create_sponza_class_scene(render_config, n_cells=362, seed=7,
         uvs = np.concatenate(
             [np.stack([ua, ub, uc], axis=2).reshape(-1, 3, 2),
              np.stack([ua, uc, ud], axis=2).reshape(-1, 3, 2)], 0)
-        mat = Lambertian(ImageMap.load(tex("wall_color.png")),
-                         load_normal_texture(tex("wall_n.png")))
+        mat = Lambertian(albedo_texture(), normal_texture())
         terrain = TriangleMesh(verts, mat, uvs=uvs)
     else:
         terrain = TriangleMesh(verts,
@@ -285,7 +365,7 @@ def _terrain_grid(n_cells, seed):
 
 def _region_mesh(P, UV, i0, i1, j0, j1, material):
     """TriangleMesh over the cell block [i0, i1) x [j0, j1)."""
-    from solstrale_tpu.scene import TriangleMesh
+    from solstrale.scene import TriangleMesh
 
     Pb = P[i0:i1 + 1, j0:j1 + 1]
     UVb = UV[i0:i1 + 1, j0:j1 + 1]
@@ -313,11 +393,11 @@ def create_sponza_production_scene(render_config, n_cells=360, seed=7):
     texture-arena contention, blend/dielectric/metal dispatch and the
     O(#lights) NEE pdf loop (pdf.rs:88-102) in the same frame as the
     262k-prim traversal."""
-    wall_c = ImageMap.load(tex("wall_color.png"))
-    wall_n = load_normal_texture(tex("wall_n.png"))
-    tex_j = ImageMap.load(tex("tex.jpg"))
-    checker = ImageMap.load(tex("checker.jpg"))
-    earth = ImageMap.load(tex("earth_height.jpg"))
+    wall_c = albedo_texture()
+    wall_n = normal_texture()
+    tex_j = ground_texture()
+    checker = checker_texture()
+    earth = height_albedo_texture()
 
     mats = [
         Lambertian(wall_c, wall_n),
@@ -376,7 +456,7 @@ def create_many_light_scene(render_config, n_lights=64, n_cells=96, seed=3):
     the reference pays O(#lights) re-intersections per shading event
     (pdf.rs:88-102), the cost center a real many-emitter sponza hits
     first."""
-    from solstrale_tpu.scene import TriangleMesh
+    from solstrale.scene import TriangleMesh
 
     P, UV = _terrain_grid(n_cells, seed)
     a, b, c, d = P[:-1, :-1], P[1:, :-1], P[1:, 1:], P[:-1, 1:]
@@ -402,3 +482,26 @@ def create_many_light_scene(render_config, n_lights=64, n_cells=96, seed=3):
     camera = CameraConfig(vertical_fov_degrees=40.0, aperture_size=0.0,
                           look_from=(0.0, 6.0, 9.0), look_at=(0.0, 0.0, 0.0))
     return Scene(Bvh(world), camera, (0.0, 0.0, 0.0), render_config)
+
+
+def create_mini_kitchen_sink(render_config):
+    """Solid-color analogue of the kitchen-sink scene without a BVH-sized
+    primitive count: every material kind (lambertian, metal, dielectric,
+    light, blend) plus a constant medium and a thin-lens camera."""
+    camera = CameraConfig(vertical_fov_degrees=20.0, aperture_size=0.1,
+                          look_from=(-5.0, 3.0, 6.0),
+                          look_at=(0.25, 1.0, 0.0))
+    red = Lambertian(SolidColor(1, 0, 0))
+    world = [
+        Quad((-5, 0, -15), (20, 0, 0), (0, 0, 20),
+             Blend(Lambertian(SolidColor(0.3, 0.6, 0.3)),
+                   Metal(SolidColor(0.8, 0.8, 0.9), None, 0.2), 0.4)),
+        Sphere((-1, 1, 0), 1.0, Dielectric(SolidColor(1, 1, 1), None, 1.5)),
+        ConstantMedium(
+            Bvh(new_box((0, 0, 0.5), (1, 2, 1.5), red)), 0.1, (1, 1, 1)),
+        Sphere((10, 5, 10), 10.0, DiffuseLight(10, 10, 10)),
+        Quad((-1, 10, -1), (2, 0, 0), (0, 0, 2),
+             DiffuseLight(12, 12, 12, attenuation_half_length=10.0)),
+    ]
+    world += new_box((0, 0, -0.5), (1, 2, 0.5), red)
+    return Scene(Bvh(world), camera, (0.2, 0.3, 0.5), render_config)

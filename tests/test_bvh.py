@@ -4,12 +4,12 @@ import jax.numpy as jnp
 import numpy as np
 
 from scenes import create_test_scene, new_bvh_test_scene
-from solstrale_tpu import RenderConfig
-from solstrale_tpu.accel import (build_bvh, build_bvh_device, bvh_closest_hit,
-                                 solids_aabbs)
-from solstrale_tpu.geo import INF, RAY_T_MIN
-from solstrale_tpu.ops.intersect import closest_solid_hit
-from solstrale_tpu.scene.compile import compile_scene
+from solstrale import RenderConfig
+from solstrale.accel import (build_bvh, build_bvh_device, bvh_closest_hit,
+                             solids_aabbs)
+from solstrale.geo import INF, RAY_T_MIN
+from solstrale.ops.intersect import closest_solid_hit
+from solstrale.scene.compile import compile_scene
 
 
 def _rand_rays(n, seed=0, spread=6.0):
@@ -73,7 +73,7 @@ def test_on_device_build_matches_host_build():
 
 
 def test_render_through_bvh_matches_brute_force():
-    from solstrale_tpu.renderer import integrator
+    from solstrale.renderer import integrator
 
     cfg = RenderConfig(width=40, height=20, samples_per_pixel=1, seed=1)
     scene = create_test_scene(cfg)
@@ -93,9 +93,9 @@ def test_compile_scene_device_bvh_matches_host():
     (same Morton order => same tree)."""
     import jax.numpy as jnp
     from scenes import create_sponza_class_scene
-    from solstrale_tpu import RenderConfig
-    from solstrale_tpu.accel import bvh_closest_hit
-    from solstrale_tpu.scene.compile import compile_scene
+    from solstrale import RenderConfig
+    from solstrale.accel import bvh_closest_hit
+    from solstrale.scene.compile import compile_scene
 
     cfg = RenderConfig(width=8, height=8, samples_per_pixel=1)
     scene = create_sponza_class_scene(cfg, n_cells=40)  # 3200 tris

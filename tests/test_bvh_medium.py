@@ -1,23 +1,17 @@
-"""Constant media on the packet-BVH fast path: a large (BVH-routed) scene
-wrapped in fog must produce finite, medium-affected renders identical
-between the BVH path and the brute-force path (scene_hit applies
-medium_hit AFTER the BVH solid sweep — integrator.scene_hit:153-163,
-constant_medium.rs:35-79)."""
-import os
-import sys
-
+"""Constant media on the BVH path: a large (BVH-routed) scene wrapped in
+fog must produce finite, medium-affected renders identical between the
+traversal kernel and the brute-force path (scene_hit applies medium_hit
+AFTER the solid hit — integrator.scene_hit, constant_medium.rs:35-79)."""
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, "tests")
-
 from scenes import create_sponza_class_scene
-from solstrale_tpu import (Bvh, ConstantMedium, RenderConfig, Scene,
-                           new_box)
-from solstrale_tpu.renderer import integrator
-from solstrale_tpu.scene.compile import compile_scene
-from solstrale_tpu.scene.materials import Lambertian
-from solstrale_tpu.scene.textures import SolidColor
+from solstrale import (Bvh, ConstantMedium, RenderConfig, Scene,
+                       new_box)
+from solstrale.renderer import integrator
+from solstrale.scene.compile import compile_scene
+from solstrale.scene.materials import Lambertian
+from solstrale.scene.textures import SolidColor
 
 
 def _foggy_scene(cfg, n_cells=36):
@@ -30,7 +24,7 @@ def _foggy_scene(cfg, n_cells=36):
     return Scene(Bvh(world), base.camera, base.background_color, cfg)
 
 
-def test_bvh_scene_with_medium_matches_brute():
+def test_bvh_scene_with_medium_matches_brute(kernel_interpret):
     w, h = 32, 20
     cfg = RenderConfig(width=w, height=h, samples_per_pixel=2, seed=2)
     scene = _foggy_scene(cfg)
@@ -39,13 +33,9 @@ def test_bvh_scene_with_medium_matches_brute():
     assert cs_bvh.kbvh is not None and len(cs_bvh.media) == 1
     cs_brute = compile_scene(scene, use_bvh=False)
 
-    os.environ["SOLSTRALE_PALLAS"] = "1"   # interpret kernels on CPU
-    try:
-        img_b, _, _, segs_b = integrator.render_sample_batch(
-            cs_bvh, jnp.int32(0), jnp.int32(2), width=w, height=h,
-            max_depth=12, shader_kind=0, need_aux=False, n_samples=2)
-    finally:
-        os.environ["SOLSTRALE_PALLAS"] = "auto"
+    img_b, _, _, segs_b = integrator.render_sample_batch(
+        cs_bvh, jnp.int32(0), jnp.int32(2), width=w, height=h,
+        max_depth=12, shader_kind=0, need_aux=False, n_samples=2)
     img_r, _, _, segs_r = integrator.render_sample_batch(
         cs_brute, jnp.int32(0), jnp.int32(2), width=w, height=h,
         max_depth=12, shader_kind=0, need_aux=False, n_samples=2)
@@ -54,9 +44,9 @@ def test_bvh_scene_with_medium_matches_brute():
     img_r = np.asarray(img_r)
     assert np.isfinite(img_b).all() and img_b.mean() > 0
     # identical RNG + identical medium events => same estimator values
-    # (fp reassociation between the kernel forms only)
+    # (fp reassociation between the two intersection forms only)
     np.testing.assert_allclose(img_b, img_r, rtol=5e-3, atol=5e-3)
     # segment counts may differ by a few paths: hit t values differ in ulps
-    # between the kernels (different fp evaluation order), and a
-    # near-threshold scatter/termination decision can flip
+    # between the kernel and the sweep (different fp evaluation order), and
+    # a near-threshold scatter/termination decision can flip
     np.testing.assert_allclose(float(segs_b), float(segs_r), rtol=1e-3)

@@ -8,8 +8,8 @@ import tempfile
 import numpy as np
 
 from scenes import create_simple_test_scene
-from solstrale_tpu import RenderConfig, Renderer
-from solstrale_tpu.geo import ray_shortest_distance
+from solstrale import RenderConfig, Renderer
+from solstrale.geo import ray_shortest_distance
 
 
 def _scene(spp):

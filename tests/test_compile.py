@@ -3,10 +3,10 @@ arena, camera precompute."""
 import numpy as np
 import pytest
 
-from solstrale_tpu import (Blend, Bvh, CameraConfig, ConstantMedium,
-                           DiffuseLight, Lambertian, Quad, RenderConfig,
-                           Scene, SolidColor, Sphere, Triangle, new_box)
-from solstrale_tpu.scene.compile import SceneError, compile_scene
+from solstrale import (Blend, Bvh, CameraConfig, ConstantMedium,
+                       DiffuseLight, Lambertian, Quad, RenderConfig,
+                       Scene, SolidColor, Sphere, Triangle, new_box)
+from solstrale.scene.compile import SceneError, compile_scene
 
 
 def _scene(world):
@@ -74,7 +74,7 @@ def test_blend_flattening():
     ])
     cs = compile_scene(_scene(world))
     kinds = np.asarray(cs.materials.kind)
-    from solstrale_tpu.scene.materials import BLEND, LAMBERTIAN
+    from solstrale.scene.materials import BLEND, LAMBERTIAN
     blend_rows = np.where(kinds == BLEND)[0]
     assert len(blend_rows) == 1
     row = blend_rows[0]
@@ -85,7 +85,7 @@ def test_blend_flattening():
 
 
 def test_camera_precompute():
-    from solstrale_tpu.scene.compile import compile_camera
+    from solstrale.scene.compile import compile_camera
 
     cam = compile_camera(
         CameraConfig(vertical_fov_degrees=90.0, look_from=(0, 0, 1),

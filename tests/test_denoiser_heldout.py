@@ -17,11 +17,11 @@ sys.path.insert(0, "tests")
 
 from scenes import (create_blend_material_scene,
                     create_normal_mapping_sphere_scene, create_uv_scene)
-from solstrale_tpu import RenderConfig
-from solstrale_tpu.post import OidnPostProcessor
-from solstrale_tpu.renderer import integrator
-from solstrale_tpu.scene.compile import compile_scene
-from solstrale_tpu.utils import to_rgb_u8
+from solstrale import RenderConfig
+from solstrale.post import OidnPostProcessor
+from solstrale.renderer import integrator
+from solstrale.scene.compile import compile_scene
+from solstrale.utils import to_rgb_u8
 
 
 def _psnr(a_u8, b_u8):

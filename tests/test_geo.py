@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from solstrale_tpu import geo
-from solstrale_tpu.geo.transformation import (NopTransformer, RotationX,
-                                              RotationY, RotationZ, Scale,
-                                              Transformations, Translation)
+from solstrale import geo
+from solstrale.geo.transformation import (NopTransformer, RotationX,
+                                          RotationY, RotationZ, Scale,
+                                          Transformations, Translation)
 
 V = lambda *a: jnp.asarray(a, jnp.float32)
 

@@ -18,8 +18,8 @@ from scenes import (create_blend_material_scene,
                     create_obj_with_box, create_obj_with_triangle,
                     create_quad_rotation_scene, create_simple_test_scene,
                     create_test_scene, create_uv_scene)
-from solstrale_tpu import (RenderConfig, RotationX, RotationY, RotationZ,
-                           SimpleShader)
+from solstrale import (RenderConfig, RotationX, RotationY, RotationZ,
+                       SimpleShader)
 
 
 def cfg(width, height, spp, **kw):
@@ -140,7 +140,7 @@ def test_blended_materials(blend_factor, name):
 def test_render_with_denoiser():
     """Learned-denoiser pipeline against the reference's OIDN golden
     (integration_tests.rs:47-61): same scene, aux channels consumed."""
-    from solstrale_tpu.post import OidnPostProcessor
+    from solstrale.post import OidnPostProcessor
 
     scene = create_simple_test_scene(
         cfg(200, 100, 8, post_processors=[OidnPostProcessor()]))
@@ -150,7 +150,7 @@ def test_render_with_denoiser():
 def test_bloom():
     """Pure post-process golden on a static input image
     (integration_tests.rs:239-254)."""
-    from solstrale_tpu.post import BloomPostProcessor
+    from solstrale.post import BloomPostProcessor
 
     post = BloomPostProcessor(0.2)
     img = np.asarray(Image.open(

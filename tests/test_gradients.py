@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from scenes import create_simple_test_scene
-from solstrale_tpu import RenderConfig
-from solstrale_tpu.diff import render_linear, set_texture_params
-from solstrale_tpu.scene.compile import compile_scene
+from solstrale import RenderConfig
+from solstrale.diff import render_linear, set_texture_params
+from solstrale.scene.compile import compile_scene
 
 W, H, DEPTH, SAMPLES, SEED = 24, 12, 6, 2, 1
 

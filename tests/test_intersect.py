@@ -3,14 +3,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from solstrale_tpu import (Bvh, CameraConfig, ConstantMedium, DiffuseLight,
-                           Lambertian, Quad, RenderConfig, Scene, SolidColor,
-                           Sphere, Triangle, new_box)
-from solstrale_tpu.geo import INF, RAY_T_MIN
-from solstrale_tpu.ops.intersect import (closest_solid_hit, hit_attributes,
-                                         light_pdf_values, medium_hit)
-from solstrale_tpu.scene.compile import (KIND_QUAD, KIND_SPHERE,
-                                         KIND_TRIANGLE, compile_scene)
+from solstrale import (Bvh, CameraConfig, ConstantMedium, DiffuseLight,
+                       Lambertian, Quad, RenderConfig, Scene, SolidColor,
+                       Sphere, Triangle, new_box)
+from solstrale.geo import INF, RAY_T_MIN
+from solstrale.ops.intersect import (closest_solid_hit, hit_attributes,
+                                     light_pdf_values, medium_hit)
+from solstrale.scene.compile import (KIND_QUAD, KIND_SPHERE,
+                                     KIND_TRIANGLE, compile_scene)
 
 V = lambda *a: jnp.asarray([a], jnp.float32)
 
@@ -129,8 +129,8 @@ def test_light_pdf_mean3_vectorized_fallback_matches_unroll():
     """Above _MEAN3_UNROLL_MAX lights the SoA mean switches to the
     vectorized (R, L) sweep; both forms must agree exactly on a mixed
     sphere/quad/triangle light set."""
-    from solstrale_tpu.ops import intersect as X
-    from solstrale_tpu.geo import soa
+    from solstrale.ops import intersect as X
+    from solstrale.geo import soa
 
     rng = np.random.default_rng(11)
     world = []

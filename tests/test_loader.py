@@ -3,8 +3,8 @@ import numpy as np
 import pytest
 
 from conftest import reference_path
-from solstrale_tpu import NopTransformer
-from solstrale_tpu.scene.loader import Obj
+from solstrale import NopTransformer
+from solstrale.scene.loader import Obj
 
 OBJ_DIR = reference_path("resources/obj") + "/"
 
@@ -32,7 +32,7 @@ def test_invalid_image_file():
 
 
 def _tri_count(group):
-    from solstrale_tpu.scene import TriangleMesh
+    from solstrale.scene import TriangleMesh
 
     return sum(len(c) if isinstance(c, TriangleMesh) else 1
                for c in group.children)
@@ -73,9 +73,9 @@ def test_spider_loads():
 def test_native_and_python_loaders_agree():
     """The C++ fast path and the pure-Python parser produce identical
     triangle soups."""
-    from solstrale_tpu import native
-    from solstrale_tpu.scene import TriangleMesh
-    from solstrale_tpu.scene.loader import _parse_obj
+    from solstrale import native
+    from solstrale.scene import TriangleMesh
+    from solstrale.scene.loader import _parse_obj
 
     if native.load() is None:
         import pytest

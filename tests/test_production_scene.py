@@ -6,16 +6,16 @@ import numpy as np
 import jax.numpy as jnp
 
 from scenes import create_many_light_scene, create_sponza_production_scene
-from solstrale_tpu import RenderConfig
-from solstrale_tpu.scene.compile import compile_scene
+from solstrale import RenderConfig
+from solstrale.scene.compile import compile_scene
 
 
 def test_production_scene_composition():
     cfg = RenderConfig(width=32, height=18, samples_per_pixel=1, seed=1)
     cs = compile_scene(create_sponza_production_scene(
         cfg, n_cells=40, seed=7))
-    from solstrale_tpu.scene.materials import (BLEND, DIELECTRIC,
-                                               LAMBERTIAN, METAL)
+    from solstrale.scene.materials import (BLEND, DIELECTRIC,
+                                           LAMBERTIAN, METAL)
 
     kinds = set(int(k) for k in np.asarray(cs.materials.kind))
     assert {LAMBERTIAN, METAL, DIELECTRIC, BLEND} <= kinds
@@ -26,8 +26,8 @@ def test_production_scene_composition():
     assert cs.textures.attr.shape[0] >= 4
     assert cs.lights.kind.shape[0] >= 4
     # all three emitter shapes present (scenes.rs:17-122 parity)
-    from solstrale_tpu.scene.compile import (KIND_QUAD, KIND_SPHERE,
-                                             KIND_TRIANGLE)
+    from solstrale.scene.compile import (KIND_QUAD, KIND_SPHERE,
+                                         KIND_TRIANGLE)
 
     lk = set(int(k) for k in np.asarray(cs.lights.kind))
     assert {KIND_QUAD, KIND_SPHERE, KIND_TRIANGLE} <= lk
@@ -38,7 +38,7 @@ def test_production_scene_renders():
     cfg = RenderConfig(width=48, height=27, samples_per_pixel=1, seed=1)
     cs = compile_scene(create_sponza_production_scene(
         cfg, n_cells=40, seed=7))
-    from solstrale_tpu.renderer import integrator
+    from solstrale.renderer import integrator
 
     color, _, _, segs = integrator.render_sample_batch(
         cs, jnp.int32(1), jnp.int32(1), width=48, height=27, max_depth=8,
@@ -53,7 +53,7 @@ def test_many_light_pdf_fallback_equivalence():
     """light_pdf_mean3's vectorized (R, L) fallback (> _MEAN3_UNROLL_MAX
     lights) must agree with the statically-unrolled SoA form
     (pdf.rs:88-102 semantics both ways)."""
-    from solstrale_tpu.ops import intersect as X
+    from solstrale.ops import intersect as X
 
     cfg = RenderConfig(width=16, height=9, samples_per_pixel=1, seed=1)
     cs = compile_scene(create_many_light_scene(cfg, n_lights=64, n_cells=8))
@@ -81,7 +81,7 @@ def test_many_light_pdf_fallback_equivalence():
 def test_many_light_scene_renders():
     cfg = RenderConfig(width=32, height=18, samples_per_pixel=1, seed=1)
     cs = compile_scene(create_many_light_scene(cfg, n_lights=64, n_cells=24))
-    from solstrale_tpu.renderer import integrator
+    from solstrale.renderer import integrator
 
     color, _, _, segs = integrator.render_sample_batch(
         cs, jnp.int32(1), jnp.int32(1), width=32, height=18, max_depth=6,

@@ -7,9 +7,9 @@ import numpy as np
 import jax.numpy as jnp
 
 from scenes import create_simple_test_scene
-from solstrale_tpu import RenderConfig
-from solstrale_tpu.renderer import integrator
-from solstrale_tpu.scene.compile import compile_scene
+from solstrale import RenderConfig
+from solstrale.renderer import integrator
+from solstrale.scene.compile import compile_scene
 
 W, H, SPP = 64, 64, 8  # 32768 queue entries -> tail path active at 32768
 

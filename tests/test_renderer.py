@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 
 from scenes import create_simple_test_scene
-from solstrale_tpu import (EverySample, Interval, RenderConfig,
-                           Renderer, ray_trace)
+from solstrale import (EverySample, Interval, RenderConfig,
+                       Renderer, ray_trace)
 
 
 def _cfg(**kw):
@@ -78,7 +78,7 @@ def test_seed_changes_noise():
 
 
 def test_albedo_normal_shaders():
-    from solstrale_tpu import AlbedoShader, NormalShader
+    from solstrale import AlbedoShader, NormalShader
 
     img_a = Renderer(create_simple_test_scene(
         _cfg(samples_per_pixel=2, shader=AlbedoShader()))).render_final()
@@ -96,8 +96,8 @@ def test_checkpoint_resume_equivalence():
     (the explicit sum+counter checkpoint of SURVEY §5)."""
     import jax.numpy as jnp
 
-    from solstrale_tpu.renderer import integrator
-    from solstrale_tpu.scene.compile import compile_scene
+    from solstrale.renderer import integrator
+    from solstrale.scene.compile import compile_scene
 
     scene = create_simple_test_scene(_cfg())
     cs = compile_scene(scene)

@@ -4,7 +4,7 @@ fundamentally lacks, random.rs:4-21)."""
 import jax.numpy as jnp
 import numpy as np
 
-from solstrale_tpu.ops import rng
+from solstrale.ops import rng
 
 
 def test_uniform_range_and_determinism():

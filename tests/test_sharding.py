@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 
 from scenes import create_simple_test_scene
-from solstrale_tpu import RenderConfig
-from solstrale_tpu.diff import train_step_sharded
-from solstrale_tpu.parallel import (make_mesh, render_sample_sharded,
-                                    replicate_scene)
-from solstrale_tpu.renderer import integrator
-from solstrale_tpu.scene.compile import compile_scene
+from solstrale import RenderConfig
+from solstrale.diff import train_step_sharded
+from solstrale.parallel import (make_mesh, render_sample_sharded,
+                                replicate_scene)
+from solstrale.renderer import integrator
+from solstrale.scene.compile import compile_scene
 
 
 def _compiled(w=40, h=16, spp=2):
@@ -60,7 +60,7 @@ def test_batch_sharded_workqueue_equal():
     """The work-queue wavefront sharded over tiles (render_batch_sharded)
     equals the full-image work-queue render: same estimator, same RNG
     streams, different pixel partitions."""
-    from solstrale_tpu.parallel import render_batch_sharded
+    from solstrale.parallel import render_batch_sharded
 
     cs = _compiled()
     kw = dict(width=40, height=16, max_depth=8)
@@ -92,9 +92,9 @@ def test_sharded_train_step():
 def test_distributed_single_process():
     """Multi-host helpers degrade gracefully to one process: global mesh over
     the 8 virtual devices, progressive distributed render on host 0."""
-    from solstrale_tpu.parallel.distributed import (global_mesh, initialize,
-                                                    render_distributed,
-                                                    scaling_efficiency)
+    from solstrale.parallel.distributed import (global_mesh, initialize,
+                                                render_distributed,
+                                                scaling_efficiency)
 
     n, i = initialize()
     assert (n, i) == (1, 0)
@@ -125,9 +125,9 @@ def test_sharded_inverse_rendering_converges():
     gradient psum) recover a perturbed texture — the loss against a render
     of the TRUE texture decreases and the recovered arena moves measurably
     closer to the truth (BASELINE.json config 5 capability)."""
-    from solstrale_tpu import (Bvh, CameraConfig, DiffuseLight, ImageMap,
-                               Lambertian, Quad, Scene, Sphere)
-    from solstrale_tpu.diff import set_texture_params
+    from solstrale import (Bvh, CameraConfig, DiffuseLight, ImageMap,
+                           Lambertian, Quad, Scene, Sphere)
+    from solstrale.diff import set_texture_params
 
     rng = np.random.default_rng(2)
     tex = ImageMap(rng.uniform(0.1, 0.9, (4, 4, 3)).astype(np.float32))
@@ -171,3 +171,19 @@ def test_sharded_inverse_rendering_converges():
     # overall downward trend (allow single-step noise)
     assert min(losses) == min(losses[-3:]) or losses[-1] <= min(losses[:3])
     assert end_dist < start_dist, (start_dist, end_dist)
+
+
+def test_sharded_programs_built_once():
+    """Repeated progressive batches reuse one jitted shard_map program
+    instead of tracing and compiling the integrator on every call."""
+    from solstrale.parallel import _batch_shard_fn, render_batch_sharded
+
+    cs = _compiled(w=16, h=8)
+    mesh = make_mesh(n_tile=4, n_sample=2)
+    cs_r = replicate_scene(cs, mesh)
+    kw = dict(width=16, height=8, max_depth=4)
+    a, _ = render_batch_sharded(cs_r, 1, 2, 1, mesh, **kw)
+    hits = _batch_shard_fn.cache_info().hits
+    b, _ = render_batch_sharded(cs_r, 3, 2, 1, mesh, **kw)
+    assert _batch_shard_fn.cache_info().hits == hits + 1
+    assert not np.allclose(np.asarray(a), np.asarray(b))

@@ -1,20 +1,29 @@
-"""Texture tests: bump-map auto-detection on the reference's real assets
-(texture.rs:182-203) and arena sampling semantics (texture.rs:167-180)."""
+"""Texture tests: bump-map auto-detection on generated normal and height
+maps written to image files (texture.rs:182-203) and arena sampling
+semantics (texture.rs:167-180)."""
 import jax.numpy as jnp
 import numpy as np
 
-from conftest import reference_path
-from solstrale_tpu.scene.textures import ImageMap, SolidColor, load_bump_map
+from scenes import height_image, normal_texture
+from solstrale.scene.textures import ImageMap, SolidColor, load_bump_map
 
 
-def test_detect_normal_map():
-    kind, img = load_bump_map(reference_path("resources/textures/wall_n.png"))
+def _write(path, image_u8):
+    from PIL import Image
+
+    Image.fromarray(image_u8).save(path)
+    return str(path)
+
+
+def test_detect_normal_map(tmp_path):
+    path = _write(tmp_path / "wall_n.png", normal_texture().image)
+    kind, img = load_bump_map(path)
     assert kind == "normal"
-    assert img.shape[0] > 0 and img.shape[1] > 0
+    assert img.shape == normal_texture().image.shape
 
 
-def test_detect_height_map():
-    kind, img = load_bump_map(reference_path("resources/textures/sponza-h.jpg"))
+def test_detect_height_map(tmp_path):
+    kind, img = load_bump_map(_write(tmp_path / "height.jpg", height_image()))
     assert kind == "height"
 
 
@@ -27,10 +36,10 @@ def test_image_map_errors():
 
 def test_arena_sampling_wrap():
     """Nearest-neighbor sample with abs-wrap UVs and flipped v."""
-    from solstrale_tpu import (Bvh, CameraConfig, DiffuseLight, Lambertian,
-                               RenderConfig, Scene, Sphere)
-    from solstrale_tpu.renderer.integrator import sample_texture
-    from solstrale_tpu.scene.compile import compile_scene
+    from solstrale import (Bvh, CameraConfig, DiffuseLight, Lambertian,
+                           RenderConfig, Scene, Sphere)
+    from solstrale.renderer.integrator import sample_texture
+    from solstrale.scene.compile import compile_scene
 
     img = np.zeros((2, 2, 3), np.uint8)
     img[0, 0] = [255, 0, 0]    # top-left

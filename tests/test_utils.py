@@ -2,8 +2,8 @@
 (gaussian.rs:27-49, rgb_color.rs:45-62, height_map.rs)."""
 import numpy as np
 
-from solstrale_tpu.utils import (create_gaussian_blur_weights,
-                                 height_to_normal_map, rgb_to_vec3, to_rgb_u8)
+from solstrale.utils import (create_gaussian_blur_weights,
+                             height_to_normal_map, rgb_to_vec3, to_rgb_u8)
 
 
 def test_gaussian_weights_exact():

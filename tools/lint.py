@@ -92,7 +92,7 @@ def lint_file(path: Path) -> list[str]:
 
 
 def main(argv):
-    targets = argv or ["solstrale_tpu", "tests", "tools", "bench.py",
+    targets = argv or ["solstrale", "tests", "tools", "bench.py",
                        "__graft_entry__.py"]
     files = []
     for t in targets:
